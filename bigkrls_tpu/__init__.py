@@ -1,6 +1,6 @@
-"""bigkrls_tpu — a TPU-native Kernel Regularized Least Squares framework.
+"""bigkrls_tpu — a JAX Kernel Regularized Least Squares framework.
 
-A from-scratch JAX/XLA/Pallas re-design with the full capabilities of the
+A from-scratch JAX/XLA re-design with the full capabilities of the
 reference R package bigKRLS (rdrr1990/bigKRLS; see SURVEY.md): Gaussian
 KRLS with exact leave-one-out golden-section tuning of the ridge penalty,
 full/truncated symmetric eigendecomposition, pointwise and average marginal
@@ -37,7 +37,7 @@ __version__ = "0.1.0"
 def enable_x64() -> None:
     """Enable float64 (parity mode vs the all-double reference).
 
-    TPU performance runs should stay in f32/bf16; f64 on TPU is emulated.
+    With x64 on, ``fit`` defaults to f64 unless ``dtype`` says otherwise.
     """
     _jax.config.update("jax_enable_x64", True)
 

@@ -1,6 +1,6 @@
 """Command-line interface.
 
-The reference is driven from an R session; the TPU framework additionally
+The reference is driven from an R session; this framework additionally
 ships a CLI for production/batch use:
 
     python -m bigkrls_tpu fit data.csv --y-col 0 --out model_dir
@@ -40,7 +40,7 @@ def _add_fit_args(p):
                    help="comma-separated 0-based column indices")
     p.add_argument("--acf", action="store_true")
     p.add_argument("--x64", action="store_true",
-                   help="float64 parity mode (slow on TPU)")
+                   help="float64 parity mode")
     p.add_argument("--noisy", action="store_true")
     p.add_argument("--checkpoint-dir", type=str, default=None)
     p.add_argument("--streaming", action="store_true",
@@ -182,7 +182,7 @@ def main(argv=None) -> int:
     pw = sub.add_parser(
         "warmup",
         help="pre-populate the XLA compile cache for a list of shapes "
-             "(first eigh compile at a new shape is minutes on TPU)")
+             "(the first compile at a new shape can outlast the fit)")
     pw.add_argument("--shapes", required=True,
                     help="comma-separated NxP list, e.g. 3106x67,50000x40")
     pw.add_argument("--binary-cols", type=int, default=1,

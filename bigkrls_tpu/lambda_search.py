@@ -101,8 +101,8 @@ def _golden_search_device(vectors, values, Qty, Q2, L, U, tol):
 
     Identical control flow to the host loop below (and to the reference's
     ``bLambdaSearch`` :55-77), but the ~16 sequential LOO evaluations run
-    without a host↔device round trip each — on a tunneled/remote TPU this
-    is the difference between ~16 RTTs and one.
+    without a host↔device round trip each — one round trip instead of
+    ~16.
     """
     gold = jnp.asarray(_GOLD, Qty.dtype)
 

@@ -1,6 +1,6 @@
 // matstore.cpp — native matrix store for bigkrls_tpu.
 //
-// TPU-native replacement for the reference's bigmemory backing-file layer
+// Native replacement for the reference's bigmemory backing-file layer
 // (file-backed big.matrix + .desc descriptor files + write.big.matrix /
 // read.big.matrix text persistence; see SURVEY.md §2.4 M1 and
 // R/bigKRLS_Rcpp_functions.R:105-156).  The reference round-trips N×N

@@ -2,7 +2,7 @@
 
 Replaces ``bDerivatives`` → ``BigDerivMat`` (``src/bigderiv_v3.cpp:13-132``)
 and the reference's entire process-pool fan-out (one R worker per X column,
-``R/bigKRLS.R:332-375``).  On TPU the per-column O(N²) loops collapse into
+``R/bigKRLS.R:332-375``).  Here the per-column O(N²) loops collapse into
 ONE multi-RHS kernel product inside one jitted program — no process
 boundary, no column loop, no N×N temporaries per column.
 

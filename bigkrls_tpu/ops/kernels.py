@@ -1,23 +1,16 @@
-"""Gaussian kernel construction — TPU-native.
+"""Gaussian kernel construction.
 
 Replaces the reference's O(N²P) scalar pairwise loops
 (``src/gauss_kernel.cpp:13-42`` for the symmetric train kernel,
 ``src/temp_kernel.cpp:13-44`` for the rectangular test×train kernel).
 
-The TPU-first formulation uses the rank-P identity
+The formulation uses the rank-P identity
 
     ||xᵢ − xⱼ||² = rᵢ + rⱼ − 2 xᵢ·xⱼ,   rᵢ = ||xᵢ||²
 
-so the whole kernel is one (N, P)×(P, N) matmul on the MXU plus broadcast
-adds and a fused ``exp`` on the VPU.  Two backends:
-
-* ``gauss_kernel`` / ``cross_kernel`` — pure XLA (jnp). XLA fuses the
-  broadcasts and exp into the matmul epilogue; optimal for f64 parity runs
-  and for small N.
-* ``gauss_kernel_pallas`` — a tiled Pallas kernel for large-N f32/bf16 runs:
-  each (TILE, TILE) output tile reads two (TILE, P) row blocks of X, does
-  the rank-P contraction in VMEM, and writes exp() directly, so the N×N
-  matrix streams through HBM exactly once.
+so the whole kernel is one (N, P)×(P, N) matmul plus broadcast adds and an
+``exp``, which XLA fuses into the matmul's epilogue.  ``gauss_kernel`` and
+``cross_kernel`` are plain XLA at every precision and size.
 
 Numerics note (SURVEY.md §7 caveat): the dot form loses precision relative
 to the reference's explicit difference-sum when ||x||² is large relative to
@@ -32,8 +25,6 @@ import functools
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def _sqdist(Xa, Xb):
@@ -78,65 +69,3 @@ def cross_kernel(X_new, X_old, sigma):
     """
     sigma = jnp.asarray(sigma, dtype=X_new.dtype)
     return jnp.exp(-_sqdist(X_new, X_old) / sigma)
-
-
-# ---------------------------------------------------------------------------
-# Pallas tiled kernel (f32 perf path)
-# ---------------------------------------------------------------------------
-
-def _gauss_tile_kernel(sigma_ref, xi_ref, xj_ref, out_ref):
-    xi = xi_ref[:]            # (T, Pp)
-    xj = xj_ref[:]            # (T, Pp)
-    g = jax.lax.dot_general(
-        xi, xj,
-        dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,  # true f32 — bf16 MXU passes
-    )                          # (T, T) = Xi Xjᵀ    put ~1e-3 error in K
-    ri = jnp.sum(xi * xi, axis=1, keepdims=True)
-    rj = jnp.sum(xj * xj, axis=1, keepdims=True)
-    d2 = jnp.maximum(ri + rj.T - 2.0 * g, 0.0)
-    out_ref[:] = jnp.exp(-d2 / sigma_ref[0])
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-@functools.partial(jax.jit, static_argnames=("tile",))
-def gauss_kernel_pallas(X, sigma, tile: int = 512):
-    """Tiled Pallas Gaussian kernel for f32 TPU runs.
-
-    Grid is (N/T, N/T); each program DMA's two (T, P) row-blocks of X into
-    VMEM, runs the rank-P contraction on the MXU and writes the exp'd tile.
-    X is zero-padded to tile multiples — zero feature padding is exact
-    (contributes 0 to squared distances) and padded rows are sliced away.
-    """
-    X = X.astype(jnp.float32)
-    n, p = X.shape
-    npad = _round_up(max(n, tile), tile)
-    ppad = _round_up(max(p, 128), 128)
-    Xp = jnp.zeros((npad, ppad), jnp.float32).at[:n, :p].set(X)
-    sig = jnp.asarray([sigma], jnp.float32)
-
-    grid = (npad // tile, npad // tile)
-    out = pl.pallas_call(
-        _gauss_tile_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile, ppad), lambda i, j: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile, ppad), lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, tile), lambda i, j: (i, j),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((npad, npad), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * npad * npad * ppad,
-            bytes_accessed=2 * npad * ppad * 4 + npad * npad * 4,
-            transcendentals=npad * npad,
-        ),
-    )(sig, Xp, Xp)
-    K = out[:n, :n]
-    eye = jnp.eye(n, dtype=bool)
-    return jnp.where(eye, jnp.ones((), jnp.float32), K)

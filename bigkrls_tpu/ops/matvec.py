@@ -10,89 +10,95 @@ consumer of K in the KRLS pipeline is actually a *product* K @ V:
 * ALL marginal-effect quantities (``ops/effects.py``): K@c, K@1, K@X,
   K@(X∘c), K@B, K@(B∘c) — stackable into ONE multi-RHS product.
 
-So for N where K cannot live in HBM (N=500k f32 ⇒ 1 TB), the fit runs
-"streaming": K is recomputed tile-by-tile from X (O(N·P) storage) and
-contracted against V on the fly.  FLOP cost per product is
-2N²(P+m) — the kernel tiles are rank-P MXU matmuls followed by a fused
-exp and a second matmul, so arithmetic intensity stays high and HBM
-traffic is O(N·(P+m)) per row-block instead of O(N²).
+So for N where K cannot live in device memory (N=500k f32 ⇒ 1 TB), the
+fit runs "streaming": K is recomputed tile-by-tile from X (O(N·P)
+storage) and contracted against V on the fly.  FLOP cost per product is
+2N²(P+m): each step is a rank-P GEMM, an elementwise ``exp`` and a
+second GEMM against a V block, and device-memory traffic is O(N·(P+m))
+per column block instead of O(N²).
 
-Two backends:
-
-* ``kernel_matmul`` — XLA: ``lax.scan`` over column blocks, each step
-  materializing only an (N, block) tile.  Works on all backends and under
-  sharding (row-shard X over a mesh and the scan's GEMMs shard with it).
-* ``kernel_matmul_pallas`` — tiled Pallas TPU kernel with grid
-  (N/Ti, N/Tj), accumulating over j so each output tile is revisited in
-  VMEM; K never touches HBM at all.
+``kernel_matmul`` is a ``lax.scan`` over column blocks, each step
+materializing only an (N, block) tile.  It is the only streaming
+backend: it runs on every platform and under sharding (row-shard X over
+a mesh and the scan's GEMMs shard with it).
 """
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-# divisor candidates for the pad-free fast path (descending; all
-# multiples of 8, so the MXU sublane layout stays clean).  1000 is the
-# load-bearing one: the production streaming shapes (50k/100k/500k/1M)
-# are all multiples of 1000 but none of 1024, and a divisor block makes
-# Xp/Vp views instead of padded COPIES — at N=1M that removes two
-# 2.2 GB HBM round-trips and the output slice-copy from every product.
-_BLOCK_DIVISORS = (1024, 1000, 800, 640, 512, 400, 320, 256, 200, 128)
+# DEFAULT_BLOCK: of the widths 1000, 2000 and 4000, 4000 ran the
+# (100k, 20)x(100k, 540) product fastest on an H100 (PERF.md).  Divisor
+# candidates for the pad-free path (descending): a block that divides N
+# makes Xp/Vp reshape views instead of padded COPIES — at N=1M that
+# removes two 2.2 GB round trips through device memory and the output
+# slice-copy from every product.  The streaming shapes the benchmark runs
+# (50k/100k/500k/1M) are all multiples of 1000.
+DEFAULT_BLOCK = 4000
+# the default policy keeps one (N, block) tile under this many bytes: each
+# scan step holds two such arrays (the rank-P product and the exp tile),
+# so at N=1M f32 the block drops to 1000 (4 GB tiles) instead of 4000
+# (16 GB), leaving device memory to the eigensolver's bases
+TILE_BYTES = 4 * 1024 ** 3
+_BLOCK_DIVISORS = (4000, 2500, 2048, 2000, 1250, 1024, 1000, 800, 640, 512,
+                   500, 400, 320, 256, 250, 200, 128)
+
+
+def pick_block(n: int, block: Optional[int] = None,
+               itemsize: int = 4) -> int:
+    """Column-block width of :func:`kernel_matmul` for N rows.
+
+    An explicit ``block`` is a memory bound the caller chose and is
+    returned as is, never widened.  The default policy takes the largest
+    divisor of N in ``_BLOCK_DIVISORS`` (pad-free) whose (N, block) tile
+    of ``itemsize``-byte elements stays under ``TILE_BYTES``, else pads:
+    to one block of N rounded up to 128 rows when N is below
+    ``DEFAULT_BLOCK``, to multiples of the capped ``DEFAULT_BLOCK``
+    otherwise."""
+    if block is not None:
+        return block
+    cap = max(128, TILE_BYTES // (n * itemsize))
+    for cand in _BLOCK_DIVISORS:
+        if cand <= min(n, cap) and n % cand == 0:
+            return cand
+    return min(DEFAULT_BLOCK, cap, _round_up(n, 128))
 
 
 @functools.partial(jax.jit, static_argnames=("block", "fast_accum"))
-def kernel_matmul(X, V, sigma, block: int = 1024, fast_accum: bool = False,
-                  init=None, out_scale=None):
+def kernel_matmul(X, V, sigma, block: Optional[int] = None,
+                  fast_accum: bool = False, init=None, out_scale=None):
     """Y = exp(-pairwise_sqdist(X, X)/sigma) @ V, never materializing K.
 
     ``V`` is (N, m); returns (N, m).  Peak temporary is one (N, block)
-    kernel tile.  When N is not a multiple of ``block``, a divisor of N
-    from ``_BLOCK_DIVISORS`` is preferred (pad-free: X/V enter the scan
-    as reshape views, no copies) before falling back to zero-padding.
+    kernel tile; ``block=None`` takes the pad-free default policy of
+    :func:`pick_block` (X/V enter the scan as reshape views, no copies).
 
     ``init``/``out_scale`` fuse a linear epilogue into the product:
     returns ``(K@V + init) * out_scale`` with ``init`` as the scan's
     initial accumulator — no separate Z/U blocks materialize.  This is
     what keeps the Chebyshev recurrence (``ops/eig._cheb_step``) at the
     plain-power memory footprint at N=1M (2.2 GB blocks; a separate
-    product-then-combine formulation exceeded HBM there).
-
-    This XLA formulation is the DEFAULT streaming backend: measured on
-    TPU v5e at matched (HIGHEST) precision it beats the hand-written
-    Pallas kernel at every streaming shape tried — 117 vs 188 ms at
-    (50k, 20)×(50k, 548), 10.9 vs 18.1 s at 500k — because the Pallas
-    grid must pad P→128 and m→tile multiples (~1.58× padded FLOPs at
-    these shapes) while XLA tiles the true shapes and fuses the exp
-    epilogue itself.  Agreement 3.9e-7 rel.  (Hand-scheduling lost to
-    the compiler here; the Pallas path is kept as an option and for its
-    per-part precision structure.)
+    product-then-combine formulation ran out of device memory there).
 
     The rank-P distance contraction always runs true-f32/HIGHEST
     (errors there sit inside exp() and distort K itself);
-    ``fast_accum`` lowers only the tile@V contraction to the MXU's
-    default bf16-multiply passes — the same precision split as the
-    Pallas fast kernel, self-correcting inside subspace iteration
+    ``fast_accum`` lowers only the tile@V contraction to the platform's
+    ``Precision.DEFAULT`` (TF32 on an H100, plain f32 on the CPU),
+    which subspace iteration self-corrects
     (tests/test_streaming.py::test_fast_power_self_correcting).
     """
     n, p = X.shape
     m = V.shape[1]
     sigma = jnp.asarray(sigma, X.dtype)
-    if block == 1024 and n % block:
-        # default-policy only: an EXPLICIT block is a memory bound the
-        # caller chose, never silently widened
-        for cand in _BLOCK_DIVISORS:       # trace-time (n, block static)
-            if cand <= n and n % cand == 0:
-                block = cand
-                break
+    block = pick_block(n, block, jnp.dtype(X.dtype).itemsize)  # trace-time
     npad = _round_up(n, block)
     if npad == n:
         Xp, Vp, r = X, V, jnp.sum(X * X, axis=1)
@@ -131,112 +137,7 @@ def kernel_matmul(X, V, sigma, block: int = 1024, fast_accum: bool = False,
     return Y if npad == n else Y[:n]
 
 
-# module-level alias (stable hash for jit static args); the XLA analog
-# of kernel_matmul_pallas_fast — rank-P part HIGHEST, tile@V fast
-kernel_matmul_fast = functools.partial(kernel_matmul, fast_accum=True)
-
-
-def _km_kernel(sigma_ref, xi_ref, xj_ref, vj_ref, out_ref, *,
-               precision=jax.lax.Precision.HIGHEST):
-    j = pl.program_id(2)
-    xi = xi_ref[:]
-    xj = xj_ref[:]
-    # the rank-P distance contraction always runs true-f32 (HIGHEST):
-    # errors here sit inside exp() and distort K itself
-    g = jax.lax.dot_general(
-        xi, xj, dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST)
-    ri = jnp.sum(xi * xi, axis=1, keepdims=True)
-    rj = jnp.sum(xj * xj, axis=1, keepdims=True)
-    tile = jnp.exp(-jnp.maximum(ri + rj.T - 2.0 * g, 0.0) / sigma_ref[0])
-    # the tile@V contraction may run at reduced precision (subspace power
-    # iterations are self-correcting; see eig._subspace_iteration_matvec)
-    contrib = jnp.dot(tile, vj_ref[:], preferred_element_type=jnp.float32,
-                      precision=precision)
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[:] = contrib
-
-    @pl.when(j > 0)
-    def _():
-        out_ref[:] = out_ref[:] + contrib
-
-
-@functools.partial(jax.jit, static_argnames=("tile_i", "tile_j", "tile_m",
-                                              "fast_accum", "interpret"))
-def kernel_matmul_pallas(X, V, sigma, tile_i: int = 512, tile_j: int = 1024,
-                         tile_m: int = 256, fast_accum: bool = False,
-                         interpret: bool = False):
-    """Pallas TPU version: K tiles live only in VMEM; output tiles are
-    accumulated across the j grid dimension (j varies fastest, so each
-    (i, m) output block stays resident while its row of K tiles streams).
-
-    The RHS is tiled over its column dimension too (``tile_m``): block-
-    Krylov bases can be thousands of columns wide (e.g. 50k×6528 at
-    neig=500), and an untiled V block would blow the ~16 MB scoped-VMEM
-    stack — per grid step only (tile_j, tile_m) of V and (tile_i, tile_m)
-    of the accumulator are resident (~1.5 MB at the defaults).
-
-    Default tiles are the ``tools/tile_sweep.py`` winners on TPU v5e at
-    the N=50k streaming shape class (n=50k, p=20, m=540): (512, 1024,
-    256) runs 185 ms/product, 15.1 TFLOP/s f32-HIGHEST — 14% faster
-    than the previous (256, 512, 512) defaults; every combination in
-    the 128–1024 range lands within 12–15 TFLOP/s.  The MEASURED
-    roofline (bench.py, N=100k): 24.5 TFLOP/s achieved ≈ 50% of the
-    ~49 TFLOP/s f32-HIGHEST MXU peak at only 144 GB/s HBM (18% of
-    819 GB/s) — the product is MXU-bound at its ~170 FLOP/byte
-    arithmetic intensity, so tiling mostly trades VMEM footprint for
-    grid overhead."""
-    X = X.astype(jnp.float32)
-    V = V.astype(jnp.float32)
-    n, p = X.shape
-    m = V.shape[1]
-    npad = _round_up(max(n, tile_i), max(tile_i, tile_j))
-    ppad = _round_up(max(p, 128), 128)
-    if m > tile_m:
-        mpad = _round_up(m, tile_m)
-    else:
-        mpad = _round_up(max(m, 128), 128)
-        tile_m = mpad
-    Xp = jnp.zeros((npad, ppad), jnp.float32).at[:n, :p].set(X)
-    # zero V rows for padded X rows => padded columns contribute exactly 0
-    Vp = jnp.zeros((npad, mpad), jnp.float32).at[:n, :m].set(V)
-    sig = jnp.asarray([sigma], jnp.float32)
-
-    import functools as _ft
-    kern = _ft.partial(
-        _km_kernel,
-        precision=(jax.lax.Precision.DEFAULT if fast_accum
-                   else jax.lax.Precision.HIGHEST))
-    grid = (npad // tile_i, mpad // tile_m, npad // tile_j)
-    out = pl.pallas_call(
-        kern,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec((tile_i, ppad), lambda i, mi, j: (i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_j, ppad), lambda i, mi, j: (j, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((tile_j, tile_m), lambda i, mi, j: (j, mi),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tile_i, tile_m), lambda i, mi, j: (i, mi),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((npad, mpad), jnp.float32),
-        interpret=interpret,   # emulated grid for CPU tests
-        cost_estimate=pl.CostEstimate(
-            flops=2 * npad * npad * (ppad + mpad),
-            bytes_accessed=2 * npad * ppad * 4 + 2 * npad * mpad * 4,
-            transcendentals=npad * npad * (mpad // tile_m),
-        ),
-    )(sig, Xp, Xp, Vp)
-    return out[:n, :m]
-
-
 # module-level alias (stable hash for jit static args — a fresh
-# functools.partial per call would defeat the compile cache)
-kernel_matmul_pallas_fast = functools.partial(kernel_matmul_pallas,
-                                              fast_accum=True)
+# functools.partial per call would defeat the compile cache): rank-P
+# part HIGHEST, tile@V at the platform's default precision
+kernel_matmul_fast = functools.partial(kernel_matmul, fast_accum=True)

@@ -1,6 +1,6 @@
 """Spectral-filter solver: coefficients and leave-one-out loss.
 
-This is the TPU-native redesign of the reference's heart,
+This is the accelerator redesign of the reference's heart,
 ``bSolveForc`` → ``BigSolveForc`` (``src/solveforc.cpp:13-78``).
 
 The reference computes, for a candidate ridge penalty λ and eigensystem
@@ -12,7 +12,7 @@ K = Q Λ Qᵀ (possibly truncated):
 
 via a sequential triangular loop of growing GEMVs — a CPU trick that halves
 FLOPs and avoids an N×N temporary (``examples/solveforc.Rmd:37-111``).
-On TPU that serialization is pure loss.  The mathematically identical,
+On a parallel device that serialization is pure loss.  The mathematically identical,
 fully-parallel form used here:
 
     w        = (Qᵀy) / (Λ+λ)            O(k)

@@ -48,7 +48,7 @@ def neffective_spectral(values_full, lambda_, n: int):
 
 def auto_acf_block(n: int, itemsize: int, budget: int = None,
                    fraction: float = 0.25) -> int:
-    """HBM-aware slab width for the blocked acf statistic (VERDICT r04
+    """Memory-aware slab width for the blocked acf statistic (VERDICT r04
     weak #3: the fixed 4096 slab was N×4096 ≈ 8 GB f32 at N=500k —
     exactly the scale the blocked path exists for).
 

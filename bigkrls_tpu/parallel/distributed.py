@@ -6,8 +6,8 @@ POSIX shared memory plus PSOCK task dispatch on one node
 by reading ``.desc`` descriptor files).  Here multi-host runs use JAX's
 standard runtime: call :func:`initialize_distributed` once per host
 process *before any JAX computation*; every mesh/sharding in ``parallel/``
-then spans the global device set, with pjit/shard_map emitting ICI
-collectives within a slice and DCN collectives across hosts.  Shardings
+then spans the global device set, with pjit/shard_map emitting
+collectives (NCCL between GPUs) within a host and across hosts.  Shardings
 replace descriptor files as the addressing scheme.
 
 Tested for real in ``tests/test_distributed.py``: two spawned CPU
@@ -43,7 +43,7 @@ def initialize_distributed(
     """Initialize the multi-host runtime; returns the global device count.
 
     With no arguments, ``jax.distributed.initialize()`` auto-detects the
-    cluster environment (Cloud TPU pod metadata, SLURM, Open MPI,
+    cluster environment (SLURM, Open MPI,
     ``JAX_COORDINATOR_ADDRESS``-style variables).  If nothing is detected
     — a plain single-host run — that raises inside JAX; we catch it and
     proceed single-process, which is the correct no-op.  When the caller

@@ -2,20 +2,20 @@
 
 The reference's scaling wall is single-node RAM: every O(N²) object lives
 in one shared-memory bigmemory matrix (~5N² doubles, ``INSTALL.md:75``).
-The TPU-native answer (SURVEY.md §2.5 "SP/CP" row and §5.7; BASELINE.json
+The answer here (SURVEY.md §2.5 "SP/CP" row and §5.7; BASELINE.json
 north star) is a **ring kernel**, à la ring attention: X is row-sharded
 over the mesh ring; at each of D steps every device computes one
 (N/D × N/D) kernel tile against a *visiting* row-block of X and forwards
 that block to its ring neighbor.  No device ever materializes more than
 its own (N/D × N) stripe of K plus one (N/D × P) visiting block, so N
-scales with the number of devices, past any single chip's HBM.
+scales with the number of devices, past any single device's memory.
 
 Implementation: ``shard_map`` over a 1-D ring axis; the block rotation is
-``jax.lax.ppermute`` (XLA lowers it to ICI collective-permute on TPU —
-the same wire the hand-rolled Pallas ``make_async_remote_copy`` ring
-would use, with the compiler overlapping the permute with the tile
-matmul).  The per-step tile compute is the rank-P matmul identity from
-``ops/kernels.py``, so it lands on the MXU.
+``jax.lax.ppermute``, which XLA lowers to a collective-permute (NCCL
+between GPUs) that it can overlap with the tile matmul.  The per-step
+tile compute is the rank-P matmul identity from ``ops/kernels.py``.  On
+cards joined all to all (NVLink) every ring neighbour is as close as any
+other, so the ring follows the algorithm, not the wiring.
 """
 from __future__ import annotations
 
@@ -99,8 +99,8 @@ def make_ring_matmul(mesh: Mesh):
     (N/D × N/D) kernel tile against the *visiting* (X, V) row-block,
     accumulates ``tile @ V_visit`` into its local output block, and
     forwards the visiting pair to its ring neighbor via ``ppermute``
-    (ICI collective-permute on TPU; the compiler overlaps the permute
-    with the tile GEMMs).  Per-device memory is O(N/D · (P + m)); FLOPs
+    (a collective-permute; the compiler overlaps it with the tile
+    GEMMs).  Per-device memory is O(N/D · (P + m)); FLOPs
     are the same 2N²(P+m) as the dense product, spread over D chips.
 
     Returned callable has the ``(X, V, sigma) -> Y`` signature of
@@ -115,7 +115,7 @@ def make_ring_matmul(mesh: Mesh):
     def local(x_own, v_own, sigma):
         def step(carry, _):
             x_vis, v_vis, acc = carry
-            tile = _tile(x_own, x_vis, sigma)              # (b, b) on MXU
+            tile = _tile(x_own, x_vis, sigma)              # (b, b)
             acc = acc + tile @ v_vis                       # (b, m)
             x_vis = jax.lax.ppermute(x_vis, axis_name=axis, perm=perm)
             v_vis = jax.lax.ppermute(v_vis, axis_name=axis, perm=perm)

@@ -1,4 +1,4 @@
-"""Multi-device sharding for the KRLS fit — the TPU replacement for the
+"""Multi-device sharding for the KRLS fit — the replacement for the
 reference's shared-memory bigmemory backing + PSOCK worker pool
 (SURVEY.md §2.5, §5.8).
 
@@ -6,9 +6,9 @@ Design: a 2-D logical mesh ("i", "j").  Every O(N²) object (kernel K,
 covariance quadratic forms) is block-sharded over both axes; O(N·k) and
 O(N·P) objects are row-sharded over "i"; small vectors are replicated.
 ``jax.jit`` with sharding annotations makes XLA insert the all-gathers /
-reduce-scatters over ICI — there is no hand-written communication in the
-dense path (the Pallas ring kernel in ``ops/kernels.py`` is the explicit-
-DMA alternative for kernel construction at pod scale).
+reduce-scatters — there is no hand-written communication in the dense
+path (``parallel/ring_kernel.py`` is the explicit ppermute ring for
+kernel construction and the streaming products).
 """
 from __future__ import annotations
 
@@ -108,7 +108,7 @@ def sharded_gauss_kernel(mesh: Mesh):
     single shared-memory K (``src/gauss_kernel.cpp``).  X enters
     row-sharded; the rank-P GEMM and the exp epilogue are partitioned by
     XLA according to the output sharding, so each device computes exactly
-    its own K block (collecting the column row-block of X over ICI)."""
+    its own K block (collecting the column row-block of X from its peers)."""
     from ..ops.kernels import gauss_kernel
 
     return jax.jit(

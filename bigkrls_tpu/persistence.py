@@ -2,7 +2,7 @@
 
 Equivalent of ``save.bigKRLS`` / ``load.bigKRLS`` and their helpers
 ``make_path``, ``bSave``, ``bLoad`` (``R/bigKRLS.R:901-1017``,
-``R/bigKRLS_Rcpp_functions.R:273-379``), redesigned for the TPU runtime:
+``R/bigKRLS_Rcpp_functions.R:273-379``), redesigned for a JAX runtime:
 
 * the reference writes each big matrix to a **text** file
   (``write.big.matrix``) plus an ``estimates.RData`` blob; here every array
@@ -12,7 +12,7 @@ Equivalent of ``save.bigKRLS`` / ``load.bigKRLS`` and their helpers
 * when the optional native extension is built (``native/matstore.cpp``),
   N×N matrices above ``MMAP_THRESHOLD`` elements are streamed to raw
   binary ``.bin`` files through the C++ writer and loaded back zero-copy
-  via ``numpy.memmap`` — the TPU-era replacement for bigmemory's
+  via ``numpy.memmap`` — the replacement for bigmemory's
   file-backed matrices;
 * folder-name collision handling mirrors ``make_path``: without
   ``overwrite_existing`` an integer suffix is appended

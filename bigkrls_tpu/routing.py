@@ -12,7 +12,7 @@ eligibility per branch.
 
 The four routes (reference mapping: the reference has exactly one —
 full dense eigh, ``R/bigKRLS_Rcpp_functions.R:171-199`` — the other
-three are the TPU-first designs layered on the same semantics):
+three are accelerator designs layered on the same semantics):
 
 * ``streaming`` — kernel-free subspace iteration; K is never
   materialized (``ops/matvec.py`` + ``ops/eig.eigensystem_streaming``).

@@ -1,8 +1,8 @@
-"""Core data types for the TPU-native KRLS framework.
+"""Core data types for the KRLS framework.
 
 These mirror the reference's de-facto data model (the ``bigKRLS`` S3 object,
 reference ``R/bigKRLS.R:148-503``, field list documented in SURVEY.md §2.3)
-but are redesigned for a JAX/TPU runtime:
+but are redesigned for a JAX runtime:
 
 * Heavy O(N²) covariance matrices are **never stored dense** by default.
   The reference materializes ``vcov.est.c`` (N×N) and ``vcov.est.fitted``
@@ -99,7 +99,7 @@ class FactoredCovariance:
 
 @dataclasses.dataclass
 class KRLSModel:
-    """Fitted KRLS model — the TPU-native analog of the ``bigKRLS`` object.
+    """Fitted KRLS model — the JAX analog of the ``bigKRLS`` object.
 
     Field names are snake_case versions of the reference fields
     (SURVEY.md §2.3); all matrices are in **original units** exactly as in
@@ -230,7 +230,7 @@ class KRLSModel:
 
     @property
     def has_big_matrices(self) -> bool:
-        """Kept for API familiarity; on TPU everything is a device array."""
+        """Kept for API familiarity; here everything is a device array."""
         return True
 
 

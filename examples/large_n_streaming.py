@@ -5,7 +5,7 @@ The reference documents a practical single-node envelope of N≈10-15k
 path never materializes the N×N kernel: the truncated eigensystem and all
 marginal effects come from tile-wise K@V products (``ops/matvec.py``).
 
-Run (TPU recommended):  python examples/large_n_streaming.py [N]
+Run (a GPU recommended):  python examples/large_n_streaming.py [N]
 """
 import sys
 import time

@@ -158,9 +158,9 @@ def test_adaptive_not_used_when_eigtrunc_zero(rng):
 def test_adaptive_f32_parity_with_dense():
     """f32 regression guard runnable on CPU: the adaptive route and the
     dense path must agree on λ*/lastkeeper at single precision too (the
-    TPU production dtype — on chip the agreement is measured EXACT, and
-    a CholQR-induced 1.5e-4 λ drift was once caught only by a manual
-    TPU run; this pins the f32 behavior in the suite)."""
+    accelerator's production dtype — a CholQR-induced 1.5e-4 λ drift was
+    once caught only by a manual run on the device; this pins the f32
+    behavior in the suite)."""
     rng = np.random.default_rng(17)   # own stream: the shared fixture's
     n, p = 2048, 3                    # state depends on test ordering
     X = rng.normal(size=(n, p))

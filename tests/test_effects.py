@@ -1,6 +1,6 @@
 """Marginal-effects oracles.
 
-The fused all-columns TPU implementation is verified against:
+The fused all-columns implementation is verified against:
 1. a literal numpy transcription of the reference loops
    (``src/bigderiv_v3.cpp``): per-column D∘K GEMV for continuous columns,
    per-row toggled-kernel first differences for binary columns;

@@ -3,7 +3,7 @@
 Two bars, per VERDICT r01 #1:
 
 1. representation equivalence — ``fit(mesh=...)`` must return the same
-   model as the single-device fit (the TPU analog of the reference's
+   model as the single-device fit (the mesh analog of the reference's
    base-R vs bigmemory equality test, ``test_basic_usage.R:103-123``);
 2. genuine distribution — every N×N / N×k intermediate of the mesh fit
    must be *partitioned* across devices (asserted via the fit's

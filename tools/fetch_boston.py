@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Fetch MASS::Boston (506×14) for the banded CV regression tests.
 
-``tests/test_boston.py`` validates the TPU build against the reference's
+``tests/test_boston.py`` validates this build against the reference's
 published 5-fold CV quality bands (``examples/bigKRLS_boston_kcv.md``),
 but the dataset ships with R's MASS package, which is not in this image,
 and the build environment has no network egress — so the test gates on a
